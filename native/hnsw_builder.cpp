@@ -4,7 +4,7 @@
 // *capabilities* as the reference's modified hnswlib
 // (third_party/hnswlib/hnswalg.h: addPoint :1260, searchKnn :1611,
 // markDelete :1156, resizeIndex :757) but is an independent implementation
-// of the Malkov & Yashunin HNSW algorithm designed to feed a TPU:
+// of the Malkov & Yashunin HNSW algorithm designed to feed an accelerator:
 //   - node-indexed flat arrays (level-0 links as one [cap, 2M] int32 block)
 //     exportable straight into device buffers for batched beam search,
 //   - capacity growth by block without relocation of per-node link vectors
@@ -142,7 +142,7 @@ struct HnswIndex {
   // stack-buffer size for traversal scratch: covers M0 = 2*M up to M=512
   // (every sane config). FT.CREATE accepts M up to search.max-vector-m
   // (reference kMaxM), so larger M spills to per-call heap scratch
-  // instead of silently truncating links (ADVICE r2).
+  // instead of silently truncating links.
   static constexpr int kMaxDegree = 1024;
   int M0 = 32;  // level-0 max degree = 2*M (hnswlib maxM0_)
   int ef_construction = 200;
@@ -423,7 +423,7 @@ struct HnswIndex {
 
   // Device-seeded insert: the caller supplies the level-0 candidate pool
   // (exact top-k of v against every node id < this one, computed by the
-  // TPU's fused scan) so the expensive ef_construction beam at level 0 —
+  // device's fused scan) so the expensive ef_construction beam at level 0 —
   // ~90% of hnswlib addPoint's distance computations (hnswalg.h:1260) —
   // is skipped. Exact candidates are a strict quality upgrade over the
   // approximate beam pool; upper levels (6% of nodes at M=16) still use
@@ -639,7 +639,7 @@ struct HnswIndex {
   }
 
   // Bulk construction from a device-built pruned KNN graph (vectorized
-  // M2 path, SURVEY.md §7): the TPU computes every node's exact top-k
+  // M2 path, SURVEY.md §7): the device computes every node's exact top-k
   // neighbors and runs the select heuristic across all nodes in
   // parallel; the host only (a) installs the forward lists, (b) adds
   // reverse edges with overflow re-selection (hnswalg.h

@@ -372,7 +372,7 @@ void collect_expansion(TextIndex* ix, int kind, const char* term_c, int dist,
     // prunes its entire subtree (row minima are non-decreasing along the
     // word, so no extension can recover). The flat per-word DP this
     // replaces re-scored every vocab word per cold query (~4ms at 20k
-    // words, dist=2 — the r4 fuzzy2 tail, VERDICT r4 next#9).
+    // words, dist=2 — the r4 fuzzy2 tail).
     const int m = (int)term.size();
     std::vector<std::vector<int32_t>> rows;
     rows.emplace_back(m + 1);
@@ -429,7 +429,7 @@ void union_docs_vec(TextIndex* ix, const std::vector<int32_t>& wids,
   if (wids.size() > 1) {
     // bitmap union: doc ids are dense interner ids, so one bitset pass +
     // an ordered sweep replaces concat-sort-unique (profiled 10x on wide
-    // fuzzy expansions over hot words — VERDICT r4 next#9). Bounded to
+    // fuzzy expansions over hot words). Bounded to
     // 16M doc-id space (2 MiB scratch); beyond that the sort path below
     // still works.
     int32_t max_doc = -1;

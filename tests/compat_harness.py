@@ -2,7 +2,7 @@
 
 The reference ships pickled Redisearch answers
 (integration/compatibility/*.pickle.gz — SURVEY.md §4.2 calls them "the
-conformance oracle the TPU build should reuse"). This harness loads the
+conformance oracle the device build should reuse"). This harness loads the
 reference's deterministic dataset generator (read at test time from the
 read-only reference tree, never copied), feeds the same documents through
 this engine, replays each recorded command, and compares results

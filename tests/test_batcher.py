@@ -1,7 +1,7 @@
 """Query batcher (P1 batched execution) + async reader-pool search.
 
 Mirrors reference reader-thread-pool coverage (thread_pool_test.cc +
-async query integration tests) with the TPU twist: concurrency must
+async query integration tests) with the accelerator twist: concurrency must
 COALESCE into fewer device launches, not more threads."""
 
 import threading

@@ -172,7 +172,7 @@ def test_scan_span_config_plumbed(rng, monkeypatch):
     seen = {}
 
     def spy(queries, *a, k, **kw):
-        # the Mosaic kernel needs a real chip; return shaped fakes — the
+        # the fused kernel compiles only for a GPU; return shaped fakes — the
         # assertion is about the config plumbing only
         seen["span"] = kw.get("span")
         seen["coarse_factor"] = kw.get("coarse_factor")

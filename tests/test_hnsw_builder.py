@@ -58,7 +58,7 @@ def test_deleted_not_returned(built):
 
 
 def test_large_m_no_link_truncation():
-    """Regression (ADVICE r2): M > 512 makes M0 = 2M exceed the stack
+    """Regression: M > 512 makes M0 = 2M exceed the stack
     scratch size (kMaxDegree=1024); traversal must heap-spill instead of
     silently ignoring links beyond the first 1024 and degrading recall."""
     rng = np.random.default_rng(3)
@@ -117,7 +117,7 @@ def test_ip_metric():
 
 
 def test_device_seeded_build_matches_host_quality(rng):
-    """Device-seeded construction (exact candidate pools from the MXU scan
+    """Device-seeded construction (exact candidate pools from the matmul scan
     replacing the level-0 ef_construction beam) must match host-built graph
     recall — exact candidates are a strict quality upgrade over the beam."""
     import numpy as np

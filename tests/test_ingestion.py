@@ -199,7 +199,7 @@ def test_multi_writer_text_ingest_consistency():
 
 
 # -- priority scheduling + suspend/resume (reference thread_pool.h:43,
-#    SuspendWorkers; VERDICT r2 partial: kLow/kHigh weighted RR) ------------
+#    SuspendWorkers; kLow/kHigh weighted RR) ------------
 
 
 class _SpySchema:

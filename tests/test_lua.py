@@ -347,7 +347,7 @@ def test_long_strings_and_comments():
 
 def test_nonfinite_return_saturates():
     # (long long) cast semantics: inf/NaN/overflow must not raise
-    # (ADVICE r4 — `return 1/0` produced '-ERR internal error')
+    # (`return 1/0` produced '-ERR internal error')
     assert resp("return 1/0") == 2**63 - 1
     assert resp("return -1/0") == -(2**63)
     assert resp("return 0/0") == 0

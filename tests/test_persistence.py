@@ -281,7 +281,7 @@ def test_round_trip_preserves_ttl(tmp_path):
     assert int(e2.execute("TTL", "k2")) == -1
 
 
-# -- op journal (AOF analog; VERDICT r2 #7) -----------------------------------
+# -- op journal (AOF analog) -----------------------------------
 # Reference durability story: mutations ride valkey's AOF
 # (ft_internal_update.cc:55) and payloads ride RDB. The standalone engine
 # carries its own write-ahead journal: persistence/journal.py.
@@ -377,7 +377,7 @@ while True:
 
 @pytest.mark.slow
 def test_journal_kill9_drill(tmp_path):
-    """The drill VERDICT r2 asks for: kill -9 between checkpoints loses
+    """The drill: kill -9 between checkpoints loses
     nothing past the fsync window (0 here => nothing at all). Runs a real
     server subprocess: SIGKILL cannot be faked in-process."""
     import signal
@@ -432,7 +432,7 @@ def test_journal_kill9_drill(tmp_path):
 
 
 # -- fork-isolated BGSAVE (reference: valkey fork BGSAVE + AtForkPrepare
-#    pool suspension, valkey_search.cc:1029; VERDICT r2 partial) -----------
+#    pool suspension, valkey_search.cc:1029) -----------
 
 
 def test_bgsave_fork_point_in_time(tmp_path):

@@ -413,7 +413,7 @@ def test_auth_acl_user_password(server, client):
 
 
 def test_acl_new_user_fails_closed(server, client):
-    """A user created with no category rules (ADVICE r2: 'on >pw ~*')
+    """A user created with no category rules ('on >pw ~*')
     must not be able to run ANY FT.* command — valkey's new-user default
     is -@all; permissions are granted explicitly."""
     server.engine.acl.setuser("carol", "on", ">pw", "~*")

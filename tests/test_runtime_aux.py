@@ -3,6 +3,7 @@
 Mirrors reference vmsdk debug.h + acl_test.cc + info-field coverage
 (SURVEY.md §2.1/§2.6/§5.5)."""
 
+import os
 import threading
 import time
 
@@ -265,3 +266,15 @@ def test_ft_debug_reference_spelling_aliases():
     assert m and all(isinstance(x, str) for x in m)
     c = e.execute("FT._DEBUG", "LIST_CONFIGS")
     assert "search.maxmemory-policy" in c
+
+
+def test_jaxinit_cache_dir_honours_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins; without it the cache sits at the
+    checkout's fixed .jax_cache."""
+    from valkey_search_tpu.runtime import jaxinit
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert jaxinit.cache_dir() == str(tmp_path)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert jaxinit.cache_dir() == os.path.join(root, ".jax_cache")

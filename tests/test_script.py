@@ -194,7 +194,7 @@ def test_script_load_evalsha(server, client):
         client.cmd("SCRIPT", "LOAD", "return 1 +")
     client.cmd("SCRIPT", "FLUSH")
     assert client.cmd("SCRIPT", "EXISTS", sha) == [0]
-    # compiled ASTs are dropped too (ADVICE r4: the AST cache accumulated
+    # compiled ASTs are dropped too (the AST cache accumulated
     # unboundedly across flush cycles)
     assert getattr(server, "_script_ast_cache", {}) == {}
 

@@ -185,7 +185,7 @@ def test_mesh_killed_shard_partial_results(rng):
 def test_mesh_large_sharded_tier(rng):
     """Wide-corpus tier on the 8-device virtual mesh: 1M rows x 32d
     sharded, mismatch injection + killed shard against the same data
-    (VERDICT r1 #4 scale story; real 10M+ runs ride the TPU bench)."""
+    (scale story; real 10M+ runs ride the card's bench)."""
     mesh = pm.make_mesh(8)
     n, d_dim = 1 << 20, 32
     corpus_np = rng.standard_normal((n, d_dim)).astype(np.float32)
@@ -219,7 +219,7 @@ def test_mesh_large_sharded_tier(rng):
 
 def test_dim_sharded_tp_topk_matches_brute_force(rng):
     """Dimension-axis (tensor-parallel) sharding: partial dots + psum
-    over ICI == exact distances (SURVEY §5.7 extension)."""
+    across devices == exact distances (SURVEY §5.7 extension)."""
     mesh = pm.make_mesh(8)
     n, d = 512, 8 * 32
     corpus = rng.standard_normal((n, d)).astype(np.float32)
@@ -250,8 +250,8 @@ def test_dim_sharded_tp_cosine(rng):
 @pytest.mark.slow
 def test_sharded_flat_large_scale_exactness(rng):
     """Scale tier: 256k x 64 across the 8-device virtual mesh — the
-    cross-shard ICI merge stays exact at sizes where per-shard padding,
-    blocking and the all_gather top-k merge all engage (VERDICT r1 #4:
+    cross-shard merge stays exact at sizes where per-shard padding,
+    blocking and the all_gather top-k merge all engage (to
     widen the virtual-mesh story beyond toy shapes)."""
     mesh = pm.make_mesh(8)
     n, d, k, nq = 8 * 32768, 64, 10, 32
@@ -319,8 +319,8 @@ def test_sharded_ivf_partial_probe_recall(rng):
 
 
 def test_sharded_ivf_rescored_exact_tier(rng):
-    """The mesh >=0.99 tier (VERDICT r4 next#3): int8 blocks AND fp32 rows
-    sharded over 8 devices, per-shard exact rescore, ICI merge. Recall
+    """The mesh >=0.99 tier: int8 blocks AND fp32 rows
+    sharded over 8 devices, per-shard exact rescore, all_gather merge. Recall
     must beat the no-rescore path on a quantization-hostile corpus and
     the returned distances must be fp32-exact."""
     from valkey_search_tpu.ops import ivf

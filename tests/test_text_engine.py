@@ -245,7 +245,7 @@ def test_ft_search_negate_text(text_eng):
 
 
 def test_nostem_field_removal_keeps_stem_links():
-    """Regression (ADVICE r2): removing a NOSTEM field whose word is also
+    """Regression: removing a NOSTEM field whose word is also
     indexed in a stemmed field must NOT eat the stem refcount — stem
     expansion (@a:run matching 'running') must survive the removal.
     Exercised against both the native C++ index and the Python fallback."""

@@ -86,7 +86,7 @@ def test_create_converges_and_routes(trio):
     got = client.execute("HGETALL", "doc:3")
     d = {got[i]: got[i + 1] for i in range(0, len(got), 2)}
     assert d[b"emb"] == vecs[3].tobytes()
-    # multi-key EXISTS fans out per key (ADVICE r4: keys hash to different
+    # multi-key EXISTS fans out per key (keys hash to different
     # nodes; routing the whole argv by argv[1] undercounted)
     assert client.execute("EXISTS", *[f"doc:{i}" for i in range(30)]) == 30
     assert client.execute("EXISTS", "doc:1", "nope", "doc:2") == 2
@@ -494,7 +494,7 @@ class _SlotMapClient:
     protocol essentials: CLUSTER SLOTS from a seed node → slot→endpoint
     map → route each command by its first key's slot → follow -MOVED.
     Proves an off-the-shelf cluster client's requirements are met by the
-    node surface (VERDICT r2 #8; reference side: vmsdk/src/cluster_map.cc
+    node surface (reference side: vmsdk/src/cluster_map.cc
     builds the same map from CLUSTER SLOTS)."""
 
     def __init__(self, seed_addr):
@@ -768,7 +768,7 @@ def test_replica_full_sync_during_write_storm():
 
 
 # ---------------------------------------------------------------------------
-# Cluster failure drills (VERDICT r1 #9; reference fanout.cc:177-221
+# Cluster failure drills (reference fanout.cc:177-221
 # partial-results policy, integration/test_fanout_base.py)
 # ---------------------------------------------------------------------------
 
@@ -1126,7 +1126,7 @@ def test_flushall_keeps_indexes_cluster(trio):
 
 
 def test_cluster_node_kill9_journal_replay(tmp_path):
-    """VERDICT r3 next#9: a cluster node SIGKILLed mid-stream must replay
+    """A cluster node SIGKILLed mid-stream must replay
     its op journal on restart and reconverge with the mesh — checkpoint +
     journal restore every write (including past-SAVE ones and a DEL), the
     restarted node rejoins metadata convergence (a post-restart FT.CREATE

@@ -1,9 +1,9 @@
-"""valkey_search_tpu — a TPU-native vector index-and-query engine.
+"""valkey_search_tpu — a device-native vector index-and-query engine.
 
 A from-scratch reimplementation of the capabilities of valkey-io/valkey-search
-(reference layout surveyed in SURVEY.md) designed TPU-first:
+(reference layout surveyed in SURVEY.md) designed accelerator-first:
 
-- distances run as MXU matmul tiles (ops/distance.py) instead of SIMD loops
+- distances run as matmul tiles (ops/distance.py) instead of SIMD loops
   (reference: third_party/hnswlib/space_l2.h, space_ip.h, simsimd),
 - flat exact KNN is a blocked scan + streaming top-k (ops/topk.py; reference:
   third_party/hnswlib/bruteforce.h),
@@ -13,7 +13,7 @@ A from-scratch reimplementation of the capabilities of valkey-io/valkey-search
   distance kernels (reference: src/indexes/tag.h, src/indexes/numeric.h,
   src/query/planner.cc),
 - the cluster coordinator's scatter/gather fanout becomes corpus sharding
-  over a jax.sharding.Mesh with an ICI all-gather top-k merge (parallel/;
+  over a jax.sharding.Mesh with an all-gather top-k merge (parallel/;
   reference: src/query/fanout.cc, src/coordinator/).
 
 Public API mirrors the reference's command surface (FT.CREATE / FT.SEARCH /

@@ -9,8 +9,8 @@ Every cross-shard search carries index fingerprint/version and
 slot-ownership fingerprints; mismatch → FAILED_PRECONDITION → retry
 (server.h:60-65).
 
-TPU-native mapping: the sharded-corpus data plane lives on the device
-mesh (parallel/fanout.py — shard_map + all_gather top-k over ICI); this
+device-native mapping: the sharded-corpus data plane lives on the device
+mesh (parallel/fanout.py — shard_map + all_gather top-k across devices); this
 package is the host control plane: an in-process cluster bus standing in
 for gossip/gRPC so N-node behavior (metadata convergence, slot routing,
 scatter/gather merge, consistency retries, partial results) runs and

@@ -17,7 +17,7 @@ Reference mapping:
 - Per-shard LIMIT optimization for non-vector queries (fanout.cc:322-358).
 
 The device-mesh data plane for a *single sharded index* lives in
-parallel/fanout.py (shard_map + ICI all_gather top-k); this module is the
+parallel/fanout.py (shard_map + all_gather top-k); this module is the
 host-level multi-node engine semantics, testable in-process.
 """
 

@@ -607,7 +607,7 @@ class NodeServer:
             # snapshots: a lazily-created db engine (first SELECT+write)
             # blocks in engine_for until the section ends, so no engine —
             # hence no write — can slip between the snapshot set and the
-            # replica becoming visible to _forward_write (ADVICE r2). Lock
+            # replica becoming visible to _forward_write. Lock
             # order everywhere is _db_lock -> engine._lock, never nested
             # the other way, so this cannot deadlock.
             stack.enter_context(self.resp._db_lock)
@@ -696,7 +696,7 @@ class NodeServer:
         log (with the logical db, valkey 9 cluster dbnum); the forwarder
         thread drains it in sequence order.
 
-        The emptiness check is re-taken under _repl_cv (ADVICE r2): the
+        The emptiness check is re-taken under _repl_cv: the
         unlocked fast-path could observe the pre-registration state while
         _cmd_repl_register was mid-flight and silently drop the write from
         the stream. Registration holds every engine lock (and _db_lock)
@@ -1072,7 +1072,7 @@ class ClusterClient:
         replica_addrs: Optional[Sequence[Sequence[str]]] = None,
     ):
         # default allows for cold XLA compiles on the serving side (first
-        # compile per program shape is 20-60s on TPU)
+        # compile per program shape can take tens of seconds)
         if not addrs:
             raise ValueError("need at least one node address")
         self.addrs = list(addrs)
@@ -1191,7 +1191,7 @@ class ClusterClient:
                    "HEXPIRE", "HPEXPIRE", "HTTL", "HPTTL", "HPERSIST"):
             if cmd in ("DEL", "EXISTS") and len(argv) > 2:
                 # multi-key forms fan out per key: keys may hash to
-                # different nodes (ADVICE r4: EXISTS routed by argv[1] only
+                # different nodes (EXISTS routed by argv[1] only
                 # silently counted on the first key's node)
                 return sum(
                     self._keyspace_cmd(_s(k), cmd, k) for k in argv[1:]

@@ -1,7 +1,7 @@
 """Index structures: vector (flat / HNSW), tag, numeric, text.
 
-TPU-native equivalents of reference src/indexes/: vector indexes are
-struct-of-arrays device residents searched by MXU kernels; tag/numeric keep
+device-native equivalents of reference src/indexes/: vector indexes are
+struct-of-arrays device residents searched by matmul kernels; tag/numeric keep
 host-side authoritative structures (postings / sorted arrays) plus device
 arrays for predicate fusion.
 """

@@ -1,11 +1,12 @@
 """Flat (brute-force, exact) vector index.
 
 Reference: src/indexes/vector_flat.{h,cc} over hnswlib BruteforceSearch
-(third_party/hnswlib/bruteforce.h) with block-sized growth. TPU design: the
-corpus lives in HBM as a padded [cap, d] fp32 array; a search is one
-streaming blocked-matmul pass with fused top-k (ops/topk.py), amortized
-over a whole batch of queries — so at ~1M×128d scale exact search runs at
-MXU/HBM speed-of-light and can outrun a CPU HNSW (see PAPERS.md TPU-KNN).
+(third_party/hnswlib/bruteforce.h) with block-sized growth. Device design:
+the corpus lives in device memory as a padded [cap, d] fp32 array; a search
+is one streaming blocked-matmul pass with fused top-k (ops/topk.py),
+amortized over a whole batch of queries — so at ~1M×128d scale exact search
+is bound by the tensor cores and device memory, and can outrun a CPU HNSW
+(PAPERS.md lists the accelerator k-NN work this follows).
 """
 
 from __future__ import annotations
@@ -45,8 +46,11 @@ class FlatVectorIndex(VectorIndexBase):
             mags = np.linalg.norm(queries, axis=1, keepdims=True)
             queries = queries / np.maximum(mags, 1e-30)
         snap = self.store.device_snapshot()
-        prec = precision or config.get("search.distance-precision")
         mode = str(config.get("search.topk-mode"))
+        # topk-mode exact means exact: full fp32 products (a GPU runs
+        # "high" float32 products in TF32)
+        prec = "highest" if mode == "exact" else (
+            precision or config.get("search.distance-precision"))
         if filter_mask is None:
             # sub-linear IVF path for large corpora (ops/ivf.py): engaged
             # above search.ivf-threshold; per-query row traffic drops from
@@ -116,7 +120,7 @@ class FlatVectorIndex(VectorIndexBase):
                     snap["vectors"].shape[0],
                 ),
                 # int8 coarse mirror when published (search.corpus-dtype
-                # int8): 2x MXU rate, exact fp32 rescore unchanged
+                # int8): int8 tensor-core rate, exact fp32 rescore unchanged
                 corpus_i8=snap.get("vectors_i8"),
                 i8_scale=snap.get("i8_scale"),
                 # operator recall-margin levers (0 = measured auto)

@@ -1,6 +1,6 @@
 """HNSW vector index: native host construction + batched device search.
 
-Reference: src/indexes/vector_hnsw.{h,cc} over modified hnswlib. TPU split:
+Reference: src/indexes/vector_hnsw.{h,cc} over modified hnswlib. Device split:
 - construction (addPoint's greedy descent + ef_construction beam + neighbor
   pruning, hnswalg.h:1260) runs in the native builder (native_lib.HnswBuilder)
   — host-side, like the reference;
@@ -109,8 +109,8 @@ class HnswVectorIndex(VectorIndexBase):
         """Rebuild the graph from live vectors, dropping tombstones.
 
         The reference reuses deleted slots in place (hnswlib
-        allow_replace_deleted + markDelete); a TPU-first engine rebuilds
-        instead — bulk construction is fast (device-seeded or
+        allow_replace_deleted + markDelete); an accelerator-first engine
+        rebuilds instead — bulk construction is fast (device-seeded or
         multi-threaded host build), the rebuilt graph has no tombstone
         drag on traversal, and the device mirror republishes compactly.
         Triggered by cron when the deleted fraction exceeds
@@ -233,7 +233,7 @@ class HnswVectorIndex(VectorIndexBase):
 
         Mode (search.hnsw-build-mode):
         - "device" (default, corpora >= 2048): the level-0 candidate pool
-          for every insert comes from an exact MXU scan of the point
+          for every insert comes from an exact tensor-core scan of the point
           against all lower node ids — the ef_construction beam that
           dominates hnswlib addPoint (hnswalg.h:1260) is skipped and the
           candidate pool is *exact* rather than beam-approximate, so
@@ -266,11 +266,12 @@ class HnswVectorIndex(VectorIndexBase):
                 ins = vectors / np.maximum(mags, 1e-30)
             mode = str(config.get("search.hnsw-build-mode"))
             if mode == "auto":
-                # the vectorized build pays off on the MXU; the XLA-CPU
-                # test mesh is slower than the native sequential build
+                # the vectorized build pays off on an accelerator; on the
+                # CPU the native sequential build is faster
                 import jax as _jax
 
-                mode = "device" if _jax.default_backend() == "tpu" else "host"
+                on_cpu = _jax.devices()[0].platform == "cpu"
+                mode = "host" if on_cpu else "device"
             if mode == "device" and len(keys) >= 2048:
                 if self.builder.count == 0:
                     nodes = self._bulk_build_device(ins)
@@ -495,8 +496,8 @@ class HnswVectorIndex(VectorIndexBase):
                 np.full((b, k), np.inf, np.float32),
                 np.full((b, k), -1, np.int32),
             )
-        # TPU-first planner choice the reference cannot make: below the
-        # scan threshold the MXU exact scan beats graph traversal outright
+        # accelerator-first planner choice the reference cannot make: below the
+        # scan threshold the exact matmul scan beats graph traversal outright
         # (higher QPS at recall 1.0) — the graph stays for huge corpora,
         # persistence, and hnswlib-semantics parity. 0 disables.
         scan_thresh = int(config.get("search.hnsw-scan-threshold"))
@@ -682,7 +683,13 @@ class HnswVectorIndex(VectorIndexBase):
                 invalid=invalid,
                 filter_mask=node_filter,
                 block_rows=max(self.store.capacity, 131072),
-                precision=config.get("search.distance-precision"),
+                # topk-mode exact means exact: full fp32 products (a GPU
+                # runs "high" float32 products in TF32)
+                precision=(
+                    "highest"
+                    if str(config.get("search.topk-mode")) == "exact"
+                    else config.get("search.distance-precision")
+                ),
             )
         d = np.asarray(d)
         nodes = np.asarray(ids)

@@ -5,7 +5,7 @@ Reference: src/indexes/numeric.{h,cc} over an order-statistic B+-tree
 planner and range fetchers (half-open bounds + negation via two ranges +
 untracked extras, numeric.h:77-121).
 
-TPU design: the authoritative store is a dense fp32 column over doc ids
+Device design: the authoritative store is a dense fp32 column over doc ids
 (NaN = absent) mirrored to the device; a range predicate is just
 ``valid & (lo {<,<=} v) & (v {<,<=} hi)`` computed on-device and fused into
 the distance kernel — no tree needed on the query path. Planner counts use

@@ -5,8 +5,8 @@ tag to a size-adaptive bag of interned key pointers (tag.h:33-43), with
 configurable separator and case sensitivity, searched by
 ``Tag::Search``/``ParseSearchTags`` (tag.h:142-148).
 
-TPU design: the authoritative structure is a host hash map tag → doc-id set
-(sorted key list for prefix walks); the query path materializes a *device
+Device design: the authoritative structure is a host hash map tag →
+doc-id set (sorted key list for prefix walks); the query path materializes a *device
 bool bitmask over doc ids* for each queried tag disjunction — cached per
 tag value and invalidated on mutation — so the predicate can be fused
 straight into the vector distance kernels (the planner's inline-filter
@@ -184,7 +184,7 @@ class TagIndex(IndexBase):
         generic path's to_string(None). Returns None when untracked keys
         with raw values exist (their doc ids are not owned here, so the
         caller must fall back to the per-row path). Zero keyspace access —
-        the index's own column is the data (VERDICT r4 item: reference
+        the index's own column is the data (reference
         analog is the aggregation mix in the FTS benchmark configs)."""
         with self._lock:
             if self._untracked_raw:

@@ -6,7 +6,7 @@ vector_base.h:46), key↔id mapping (here delegated to the schema-shared
 KeyInterner), prefiltered exact scoring (AddPrefilteredKey, :170 — here a
 masked device scan), and reply construction (CreateReply, :177).
 
-TPU design: the host keeps the authoritative copy in pinned numpy arrays;
+Device design: the host keeps the authoritative copy in pinned numpy arrays;
 the device holds a mirror refreshed either by scatter-update (few dirty
 rows, donated in-place) or full re-upload (bulk change). Queries always run
 against the device mirror; the host arrays are the checkpoint source.
@@ -160,7 +160,7 @@ class HostVectorStore:
         with self._lock:
             dt = str(config.get("search.corpus-dtype"))
             # int8 mode serves the coarse stage from the int8 mirror and
-            # rescores from fp32 — the bf16 mirror would be dead HBM
+            # rescores from fp32 — the bf16 mirror would be dead memory
             # (2.5GB at 10Mx128), so it is only built for bfloat16 mode
             lp = dt == "bfloat16"
             i8 = dt == "int8"
@@ -171,15 +171,15 @@ class HostVectorStore:
                     "invalid": jnp.asarray(~self.present),
                 }
                 if lp:
-                    # bf16 mirror for the coarse scan (half the HBM
+                    # bf16 mirror for the coarse scan (half the memory
                     # traffic; exact fp32 rescore uses "vectors") — cast
-                    # ON DEVICE: one HBM pass instead of a host convert +
+                    # ON DEVICE: one memory pass instead of a host convert +
                     # second transfer
                     self._device["vectors_lp"] = self._device[
                         "vectors"
                     ].astype(jnp.bfloat16)
                 if i8:
-                    # int8 mirror: 2x MXU rate + integer scan epilogue
+                    # int8 mirror: int8 tensor cores + integer epilogue
                     # (ops/pallas_scan int8 section); global symmetric
                     # scale from the published rows' absmax
                     v = self._device["vectors"]

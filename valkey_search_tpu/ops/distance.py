@@ -1,4 +1,4 @@
-"""Distance metrics as MXU contractions.
+"""Distance metrics as tensor-core contractions.
 
 Semantics match the reference's hnswlib spaces exactly:
 - ``l2``:      squared Euclidean distance (reference third_party/hnswlib/
@@ -12,8 +12,8 @@ Semantics match the reference's hnswlib spaces exactly:
                normalized embeddings.
 
 All batched distances are computed as a single ``dot_general`` so XLA tiles
-them onto the MXU; the expansion ``||q-x||² = ||q||² + ||x||² - 2 q·x``
-turns L2 into the same matmul as IP plus two cheap rank-1 adds that XLA
+them onto the tensor cores; the expansion
+``||q-x||² = ||q||² + ||x||² - 2 q·x`` turns L2 into the same matmul as IP plus two cheap rank-1 adds that XLA
 fuses into the matmul epilogue.
 """
 
@@ -29,7 +29,7 @@ VALID_METRICS = ("l2", "ip", "cosine")
 
 # Precision for the q·x contraction. HIGHEST keeps fp32-exact ordering so
 # exact-KNN results are bit-comparable with a CPU float implementation;
-# "default" lets the MXU use bf16 passes (faster, fine for ANN).
+# "default" lets the tensor cores use bf16 passes (faster, fine for ANN).
 _PRECISION = {
     "highest": jax.lax.Precision.HIGHEST,
     "high": jax.lax.Precision.HIGH,
@@ -102,8 +102,8 @@ def batched_candidate_scores(
     """Per-query candidate distances: queries [B, d] × cand_vecs [B, C, d] → [B, C].
 
     The per-hop distance step of batched HNSW beam search: one einsum so the
-    whole batch lands on the MXU (replaces the per-candidate SIMD call in the
-    reference's searchBaseLayerST hot loop, hnswalg.h:1611-1685).
+    whole batch lands on the tensor cores (replaces the per-candidate SIMD
+    call in the reference's searchBaseLayerST hot loop, hnswalg.h:1611-1685).
     """
     prec = resolve_precision(precision)
     dots = jnp.einsum(

@@ -1,12 +1,12 @@
 """Batched HNSW search as a device program.
 
-TPU-native replacement for the reference's searchKnn hot loop
+device-native replacement for the reference's searchKnn hot loop
 (third_party/hnswlib/hnswalg.h:1611-1685): instead of one pointer-chasing
 walk per query with a SIMD distance call per hop, a whole *batch* of queries
 walks the graph in lockstep —
 
 - upper layers: batched greedy descent (one `lax.while_loop` per layer; each
-  step gathers every query's neighbor rows and scores them with one MXU
+  step gathers every query's neighbor rows and scores them with one tensor-core
   einsum),
 - layer 0: batched best-first beam search. Per iteration each query expands
   its best unexpanded beam entry, gathers its M0 neighbors' vectors, scores
@@ -21,7 +21,7 @@ nodes in exactly hnswlib's order and terminates exactly when hnswlib's
 (hnswlib VisitedList), re-gathered nodes are deduplicated against the beam;
 evicted nodes can never re-enter (their distance exceeds a lower bound that
 only decreases), so termination is preserved and the whole state stays in
-registers/VMEM rather than doing scatter updates to an HBM bitmap.
+registers rather than doing scatter updates to an device memory bitmap.
 
 With a filter (reference inline-filter functor, src/query/search.cc:102-133)
 or tombstoned deletes (hnswalg.h markDelete :1156), traversal admission and
@@ -259,9 +259,10 @@ def hnsw_search_batch(
 class HnswAosTables(NamedTuple):
     """Gather-optimized traversal mirror (built from an HnswDeviceGraph).
 
-    TPU HBM gathers degrade badly on small scattered rows: fetching one
-    node's M0 neighbor VECTORS as a single contiguous [M0, dp] int8 block
-    is ~3x faster than M0 scattered per-vector rows, and shrinking dp via
+    Device gathers of small scattered rows are slow: fetching one node's
+    M0 neighbor VECTORS as a single contiguous [M0, dp] int8 block was
+    ~3x faster than M0 scattered per-vector rows on the previous
+    hardware (not yet measured on the H100), and shrinking dp via
     a random projection shrinks the per-row bytes further (the walk only
     needs distance ORDER; the final exact fp32 rescore restores
     precision — DiskANN's PQ-guided traversal plays the same trick). The
@@ -336,8 +337,8 @@ def hnsw_search_batch_aos(
     the end.
 
     Design vs hnsw_search_batch (the round-1 kernel, kept for filtered /
-    over-budget cases): no einsum (batched-matvec einsums lower
-    catastrophically on TPU — measured 74-294ms/iter at B=1024), no
+    over-budget cases): no einsum (batched-matvec einsums lowered
+    badly on the previous hardware; not yet measured on the H100), no
     second result list (the unfiltered beam IS the result set), fewer
     and cheaper per-iteration ops, coarse int8 distances during the walk
     with recall restored by the exact rescore (the same two-stage idea as
@@ -362,13 +363,13 @@ def hnsw_search_batch_aos(
 
     seed_d = seed_i = None
     if seed_stride:
-        # scan-seeded initialization: one MXU pass over a strided corpus
+        # scan-seeded initialization: one matmul pass over a strided corpus
         # subsample fills the beam with ef already-good candidates; the
         # graph walk then only has to pull in their true neighborhoods
         # (the hierarchy descent is skipped — the subsample plays the
         # upper layers' role of long-range routing)
         sub = aos.q_vectors[::seed_stride].astype(jnp.bfloat16) * scale_bf
-        dots = (qbf @ sub.T).astype(jnp.float32)        # [B, S] on the MXU
+        dots = (qbf @ sub.T).astype(jnp.float32)        # [B, S] matmul
         if metric == "l2":
             s_sq = jnp.sum(sub.astype(jnp.float32) ** 2, axis=1)
             q_sq = jnp.sum(walk_q * walk_q, axis=1)

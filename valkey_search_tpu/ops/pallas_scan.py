@@ -1,137 +1,218 @@
-"""Fused coarse-scan Pallas kernel: distance matmul + per-bucket min/argmin.
+"""Fused coarse scan: distance matmul + per-bucket min, one Triton kernel.
 
-The XLA two-stage coarse scan (ops/topk.py flat_topk_two_stage) is HBM-bound:
-the [B, N] bf16 score matrix produced by the distance matmul round-trips HBM
-before ``lax.approx_min_k`` reduces it (at B=16384, N=262144 that is ~17 GB
-of traffic per block against ~70 MB of inputs). This kernel fuses the
-reduction into the matmul epilogue: each grid step computes a
-[block_b, BLOCK_N] score tile in VMEM and immediately collapses every
-128-row bucket to its (min value, argmin row), so HBM sees only the corpus
-stream plus a 128x-smaller survivor array.
+The plain two-stage coarse scan (ops/topk.py flat_topk_two_stage) writes
+the whole [B, N] score matrix to device memory before a selection reads it
+back: at B=65536 and N=1M that is 262 GB of f32 traffic against a 128 MB
+int8 corpus. This kernel folds the reduction into the matmul: each program
+keeps a [block_b, 128] int32 accumulator in registers, walks its corpus rows
+in 128-row tiles (one tensor-core ``dot`` per 128-wide slice of the
+contraction dimension) and min-folds every tile's scores into the
+accumulator, so device memory sees only the corpus stream plus a survivor
+array span*128 times smaller than the score matrix.
 
 This plays the same role as the reference's fused scoring loop — the
 brute-force scan in third_party/hnswlib/bruteforce.h:213 never materializes
 all scores either; it folds selection into the distance pass via a bounded
-heap. Selection here is bucketed (one survivor per 128 consecutive corpus
-rows) because a data-dependent heap does not map to the MXU/VPU; the
-candidate loss from bucket collisions is recovered by coarse over-retrieval
-plus the exact fp32 rescore, exactly like the approx_min_k path (approx
-recall math is identical — lax.approx_min_k uses the same partial-reduce
-bucketing internally, just without the matmul fusion).
+heap. Selection here is bucketed because a data-dependent heap does not map
+to the tensor cores; the candidate loss from bucket collisions is recovered
+by coarse over-retrieval plus the exact fp32 rescore.
 
-Scores are "smaller is better": ``alpha * <q, c> + bias[c]`` with
+Survivor layout (shared by both key functions and decoded in
+ops/topk.py): survivor group g covers ``span * GROUP`` consecutive corpus
+rows; its survivor column g*128 + l keeps the min over the rows
+{g*span*GROUP + m*BUCKET + l : m < span*128}, and the low ``chunk_bits`` of
+each int32 key carry the m of the winning row. One survivor group is one
+program's work; small batches split a group's tiles over ``split``
+programs and a tiny XLA min over the split axis finishes the fold (min of
+keys is associative, so the result is bit-identical).
+
+Keys are "smaller is better": ``alpha * <q, c> + bias[c]`` with
 - l2:        alpha=-2, bias=||c||²   (the per-query ||q||² offset cannot
                                       change per-query ordering, so it is
                                       dropped until the exact rescore)
 - ip/cosine: alpha=-1, bias=0
 Invalid rows (unallocated capacity, tombstones, filtered-out) carry
-bias=+inf, which survives min-reduction and marks the survivor invalid.
+bias=+inf (bf16) or the SENTINEL (int8), which survives min-reduction and
+marks the survivor invalid.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
 
 INF = float("inf")
 INVALID_ID = -1
 
-BUCKET = 128            # corpus rows per survivor (one lane group)
-BLOCK_N = 512           # corpus rows scored per grid step
-NBT = BLOCK_N // BUCKET  # buckets emitted per grid step (4)
-OUT_W = 128             # output block width in lanes
-REVISIT = OUT_W // NBT  # consecutive N-steps that share one output block (32)
-GROUP = BLOCK_N * REVISIT  # corpus rows per output block (16384)
+BUCKET = 128              # corpus rows per tile = survivor lanes per group
+GROUP = BUCKET * BUCKET   # rows per survivor group at span 1 (128 chunks)
+_INT32_MAX = 0x7FFFFFFF
+# Programs wanted in flight before a group's tiles are split across
+# programs: a few waves over the streaming multiprocessors of any current
+# data-center card (132 on an H100).
+_MIN_PROGRAMS = 512
 
 
-def _kernel(q_ref, qsq_ref, c_ref, bias_ref, chunk_ref, vals_ref, idx_ref,
-            sv_ref, *, positive: bool, block_n: int = BLOCK_N,
-            revisit: int = REVISIT):
-    """One grid step: score [block_b, BLOCK_N] and fold into the group's
-    running survivors.
+class Tile(NamedTuple):
+    """Launch shape of the fused scan: query rows per program, Triton's
+    warps and pipeline stages, and how many programs share one survivor
+    group's tiles."""
 
-    Buckets are *strided*: output lane l of a GROUP collects corpus rows
-    {group_start + m*BUCKET + l, m in [GROUP/BUCKET)}, so every reduction
-    is an elementwise 128-lane-aligned min/select — Mosaic forbids
-    lane-dim stores at non-128-aligned offsets, which rules out packing
-    contiguous buckets column-by-column. Membership is arbitrary anyway:
-    ``idx`` carries absolute corpus rows and the downstream selection is
-    an unordered top-k over all lanes. The output block is shared by
-    REVISIT consecutive N-steps (index_map j // REVISIT); a
-    [block_b, BUCKET] VMEM scratch pair accumulates across them and
-    flushes on the group's last step.
+    block_b: int
+    num_warps: int
+    num_stages: int
+    split: int
+
+
+def choose_tile(b: int, groups: int, chunks: int) -> Tile:
+    """Tile for a [b, *] query batch over ``groups`` survivor groups of
+    ``chunks`` 128-row tiles each.
+
+    block_b is a power of two in [16, 128] (16 is the tensor cores'
+    smallest dot tile). At block_b=128 the int32 accumulator plus one tile
+    of scores is 128 KB of registers, which needs 8 warps to stay under
+    255 registers a thread. Small batches leave most of the card idle with
+    one program per survivor group, so the group's tiles are split over
+    programs until about _MIN_PROGRAMS are in flight.
     """
-    j = pl.program_id(1)
-    jm = j % revisit
-    dots = jax.lax.dot_general(
-        q_ref[...],
-        c_ref[...],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    # The epilogue below runs on the VPU over every score element; at
-    # D=128 each elementwise op costs ~0.4x the matmul's MXU time, so the
-    # op count is the kernel's speed limit (alpha is pre-folded into the
-    # queries by the wrapper for the same reason).
-    #
-    # Pack (score, chunk-id) into one monotonic int32 key so the whole
-    # argmin reduction is pure integer min (1 VPU op per fold) instead of
-    # a 3-op compare/select dance per chunk. For IEEE f32, raw bits as
-    # signed i32 are already min-ordered when scores are >= 0; l2 gets
-    # that for free by adding the per-query ||q||^2 row constant (making
-    # the coarse score the true squared distance). Scores the bf16 matmul
-    # rounds to just below zero sort before all positives with inverted
-    # internal order — they are all true near-duplicates of the query, so
-    # over-retrieval + exact rescore absorb it. Metrics without a
-    # positivity guarantee (raw ip) instead apply the 3-op total-order
-    # involution key = i ^ ((i >> 31) & 0x7fffffff). The low 7 key bits
-    # are then replaced by the chunk index within the GROUP (GROUP/BUCKET
-    # = 128 chunks); quantizing the coarse score by <= 127 ulp is noise
-    # the cf*k over-retrieval + exact rescore already absorb.
-    s = dots + bias_ref[...]  # [block_b, BLOCK_N] f32 in VMEM
-    if positive:
-        s = s + qsq_ref[...]
-        key = jax.lax.bitcast_convert_type(s, jnp.int32)
-    else:
-        bits = jax.lax.bitcast_convert_type(s, jnp.int32)
-        key = bits ^ ((bits >> 31) & jnp.int32(0x7FFFFFFF))
-    # chunk ids are a per-(column, jm) constant — precomputed by the
-    # wrapper and streamed in as a [1, block_n] row (saves the 3 VPU
-    # iota/shift/add ops per score element that computing them inline
-    # costs; the epilogue's op count is the kernel's speed limit)
-    packed = (key & jnp.int32(~127)) | chunk_ref[0]
-    w = block_n
-    while w > BUCKET:
-        w //= 2
-        packed = jnp.minimum(packed[:, :w], packed[:, w:2 * w])
+    block_b = min(128, max(16, pl.next_power_of_2(b)))
+    programs = -(-b // block_b) * groups
+    split = 1
+    while (programs * split < _MIN_PROGRAMS
+           and chunks % (2 * split) == 0):
+        split *= 2
+    return Tile(block_b, 8 if block_b >= 128 else 4, 3, split)
 
-    @pl.when(jm == 0)
-    def _init():
-        sv_ref[...] = packed
 
-    @pl.when(jm != 0)
-    def _acc():
-        sv_ref[...] = jnp.minimum(sv_ref[...], packed)
+def _scan_kernel(q_ref, qsq_ref, c_ref, bias_ref, out_ref, *, nd: int,
+                 steps: int, chunk_bits: int, pre_shift: int, mode: str):
+    """One program: min-fold ``steps`` 128-row corpus tiles into a
+    [block_b, 128] int32 key accumulator.
 
-    @pl.when(jm == revisit - 1)
-    def _flush():
-        best = sv_ref[...]
-        vbits = best & jnp.int32(~127)
-        if not positive:
-            vbits = vbits ^ ((vbits >> 31) & jnp.int32(0x7FFFFFFF))
-        vals_ref[...] = jax.lax.bitcast_convert_type(vbits, jnp.float32)
-        lane = jax.lax.broadcasted_iota(jnp.int32, best.shape, 1)
-        group_start = (j - (revisit - 1)) * block_n
-        idx_ref[...] = group_start + (best & 127) * BUCKET + lane
+    mode "i8": int8 x int8 -> int32 dot; key = ((bias - dot) >> pre_shift)
+    << chunk_bits | m. With pre_shift == 0 the chunk id is folded into the
+    bias row first, so the per-score work is one shift, one subtract and
+    one min: both shifted terms have zero low chunk_bits and the offset
+    bias keeps bias - dot >= 0, so the subtraction never borrows out of the
+    chunk field (bit-identical to the general form).
+
+    modes "l2" / "ip": bf16 dot with f32 accumulation, score = dot + bias
+    (+ ||q||² for l2, which makes it the true non-negative squared
+    distance, so its raw f32 bits are already min-ordered as int32). ip
+    scores have no sign guarantee and take the total-order involution
+    key = bits ^ ((bits >> 31) & 0x7fffffff). The low chunk_bits of the key
+    are then replaced by the chunk id (quantizing the coarse score by
+    < 2^chunk_bits ulp, noise the over-retrieval + rescore absorb).
+    """
+    acc_t = jnp.int32 if mode == "i8" else jnp.float32
+    block_b = q_ref.shape[0]
+    m0 = pl.program_id(2) * steps
+    low = jnp.int32((1 << chunk_bits) - 1)
+    qsq = qsq_ref[...][:, None] if mode == "l2" else None
+
+    def slice_dot(rows, kd, dot):
+        cols = pl.ds(kd * 128, 128)
+        return dot + jax.lax.dot_general(
+            q_ref[:, cols], c_ref[rows, cols],
+            dimension_numbers=(((1,), (1,)), ((), ())),
+            preferred_element_type=acc_t,
+        )
+
+    def body(t, acc):
+        rows = pl.ds(t * BUCKET, BUCKET)
+        dot = jnp.zeros((block_b, BUCKET), acc_t)
+        if nd == 1:
+            dot = slice_dot(rows, 0, dot)
+        else:
+            # one 128-wide contraction slice per inner step: Triton
+            # pipelines this loop, so shared memory holds num_stages
+            # slices rather than num_stages whole d-wide rows (d=768 at
+            # three stages would need 576 KB of the 227 KB a block gets)
+            dot = jax.lax.fori_loop(
+                0, nd, lambda kd, x: slice_dot(rows, kd, x), dot)
+        m = m0 + t
+        bias = bias_ref[rows]
+        if mode == "i8":
+            if pre_shift:
+                score = (bias[None, :] - dot) >> pre_shift
+                key = (score << chunk_bits) | m
+            else:
+                bias_c = (bias << chunk_bits) | m
+                key = bias_c[None, :] - (dot << chunk_bits)
+        else:
+            s = dot + bias[None, :]
+            if qsq is not None:
+                s = s + qsq
+            bits = jax.lax.bitcast_convert_type(s, jnp.int32)
+            if mode == "ip":
+                bits = bits ^ ((bits >> 31) & jnp.int32(_INT32_MAX))
+            key = (bits & ~low) | m
+        return jnp.minimum(acc, key)
+
+    acc = jax.lax.fori_loop(
+        0, steps, body, jnp.full((block_b, BUCKET), _INT32_MAX, jnp.int32))
+    out_ref[...] = acc
+
+
+def _scan(queries, qsq, corpus, bias, *, span: int, pre_shift: int,
+          mode: str, tile: Optional[Tile], interpret: bool) -> jnp.ndarray:
+    """Packed survivor keys [B, N/(128*span)] i32 (layout in the module
+    docstring). Shapes must already be padded: N % (span*GROUP) == 0,
+    D % 128 == 0; B is padded here to the tile."""
+    b, d = queries.shape
+    n = corpus.shape[0]
+    sg = span * GROUP
+    if n % sg or d % 128 or bias.shape[-1] != n:
+        raise ValueError(
+            f"fused scan alignment: N={n}%{sg}, D={d}%128, "
+            f"bias {bias.shape} must match N"
+        )
+    chunks = span * (GROUP // BUCKET)
+    chunk_bits = (chunks - 1).bit_length()
+    groups = n // sg
+    tile = tile or choose_tile(b, groups, chunks)
+    if chunks % tile.split:
+        raise ValueError(f"split {tile.split} must divide {chunks} tiles")
+    pad_b = -b % tile.block_b
+    if pad_b:
+        queries = jnp.pad(queries, ((0, pad_b), (0, 0)))
+        qsq = jnp.pad(qsq, (0, pad_b))
+    bp = b + pad_b
+    split = tile.split
+    rows_pp = sg // split
+    out = pl.pallas_call(
+        functools.partial(
+            _scan_kernel, nd=d // 128, steps=chunks // split,
+            chunk_bits=chunk_bits, pre_shift=pre_shift, mode=mode,
+        ),
+        grid=(bp // tile.block_b, groups, split),
+        in_specs=[
+            pl.BlockSpec((tile.block_b, d), lambda i, g, s: (i, 0)),
+            pl.BlockSpec((tile.block_b,), lambda i, g, s: (i,)),
+            pl.BlockSpec(
+                (rows_pp, d), lambda i, g, s, p=split: (g * p + s, 0)),
+            pl.BlockSpec((rows_pp,), lambda i, g, s, p=split: (g * p + s,)),
+        ],
+        out_specs=pl.BlockSpec(
+            (None, tile.block_b, BUCKET), lambda i, g, s: (s, i, g)),
+        out_shape=jax.ShapeDtypeStruct((split, bp, groups * BUCKET),
+                                       jnp.int32),
+        compiler_params=pltr.CompilerParams(
+            num_warps=tile.num_warps, num_stages=tile.num_stages),
+        backend="triton",
+        interpret=interpret,
+        name=f"fused_scan_{mode}",
+    )(queries, qsq, corpus, bias.reshape(n))
+    return out.min(axis=0)[:b]
 
 
 @functools.partial(
-    jax.jit, static_argnames=("positive", "block_b", "block_n", "interpret")
+    jax.jit, static_argnames=("positive", "tile", "interpret")
 )
 def bucket_min_scan(
     queries: jnp.ndarray,   # [B, D] bf16, alpha PRE-FOLDED (see wrapper)
@@ -139,72 +220,31 @@ def bucket_min_scan(
     corpus: jnp.ndarray,    # [N, D] bf16 (N % GROUP == 0)
     bias: jnp.ndarray,      # [1, N] f32 (+inf rows are invalid)
     positive: bool,
-    block_b: int = 512,
-    block_n: int = BLOCK_N,
+    tile: Optional[Tile] = None,
     interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Fused coarse scan → (vals [B, N/128] f32, idx [B, N/128] i32).
+    """Fused bf16 coarse scan → (vals [B, N/128] f32, idx [B, N/128] i32).
 
-    ``positive``: scores qsq + bias + <q, c> are guaranteed >= 0 up to
-    bf16 rounding (true for l2 with alpha folded into q) — enables the
-    cheap raw-bits key (see _kernel).
+    ``positive``: scores qsq + bias + <q, c> are >= 0 up to bf16 rounding
+    (true for l2 with alpha folded into q) — enables the raw-bits key.
+    vals carry the key's quantized score (low 7 mantissa bits dropped).
     """
-    b, d = queries.shape
-    n = corpus.shape[0]
-    if n % GROUP or d % 128 or b % block_b or block_n % BUCKET \
-            or GROUP % block_n:
-        raise ValueError(
-            f"bucket_min_scan alignment: B={b}%{block_b}, N={n}%{GROUP}, "
-            f"D={d}%128, block_n={block_n} must align"
-        )
-    revisit = GROUP // block_n
-    nb = n // BUCKET
-    grid = (b // block_b, n // block_n)
-    chunk = _chunk_rows(block_n, revisit)
-    return pl.pallas_call(
-        functools.partial(
-            _kernel, positive=positive, block_n=block_n, revisit=revisit
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block_b, d), lambda i, j: (i, 0)),
-            pl.BlockSpec((block_b, 1), lambda i, j: (i, 0)),
-            pl.BlockSpec((block_n, d), lambda i, j: (j, 0)),
-            pl.BlockSpec((1, block_n), lambda i, j: (0, j)),
-            pl.BlockSpec(
-                (1, 1, block_n), lambda i, j, r=revisit: (j % r, 0, 0)
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (block_b, OUT_W), lambda i, j, r=revisit: (i, j // r)
-            ),
-            pl.BlockSpec(
-                (block_b, OUT_W), lambda i, j, r=revisit: (i, j // r)
-            ),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, nb), jnp.float32),
-            jax.ShapeDtypeStruct((b, nb), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((block_b, BUCKET), jnp.int32),  # packed (score, chunk)
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
+    key = _scan(
+        queries, qsq.reshape(-1).astype(jnp.float32), corpus, bias,
+        span=1, pre_shift=0, mode="l2" if positive else "ip", tile=tile,
         interpret=interpret,
-    )(queries, qsq, corpus, bias, chunk)
+    )
+    return _decode_bf16(key, positive)
 
 
-def _chunk_rows(block_n: int, revisit: int) -> jnp.ndarray:
-    """[revisit, 1, block_n] i32: chunk-id row for each j%revisit step —
-    the chunk index within the GROUP of every score column (see _kernel).
-    3-D so the per-step block (1, 1, block_n) satisfies Mosaic's rule that
-    the last two block dims divide 8/128 or equal the array dims."""
-    col = jnp.arange(block_n, dtype=jnp.int32) >> 7
-    jm = jnp.arange(revisit, dtype=jnp.int32)[:, None]
-    return (col[None, :] + jm * (block_n // BUCKET))[:, None, :]
+def _decode_bf16(key, positive):
+    vbits = key & jnp.int32(~127)
+    if not positive:
+        vbits = vbits ^ ((vbits >> 31) & jnp.int32(_INT32_MAX))
+    vals = jax.lax.bitcast_convert_type(vbits, jnp.float32)
+    col = jnp.arange(key.shape[1], dtype=jnp.int32)[None, :]
+    idx = (col // BUCKET) * GROUP + (key & 127) * BUCKET + col % BUCKET
+    return vals, idx
 
 
 def bucket_min_scan_reference(
@@ -213,7 +253,7 @@ def bucket_min_scan_reference(
     corpus: jnp.ndarray,
     bias: jnp.ndarray,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Pure-XLA oracle for the kernel (tests compare against this).
+    """Plain-XLA oracle for the bf16 kernel.
 
     Mirrors the wrapper contract: alpha pre-folded into queries, qsq a
     per-row constant ([B, 1], zeros when unused). Values are full f32
@@ -226,8 +266,6 @@ def bucket_min_scan_reference(
     )
     s = dots + bias + qsq  # [B, N]
     b, n = s.shape
-    # strided buckets (see _kernel): group g, lane l collects rows
-    # {g*GROUP + m*BUCKET + l}; output column g*BUCKET + l
     sb = s.reshape(b, n // GROUP, GROUP // BUCKET, BUCKET)
     vals = sb.min(axis=2)                                  # [b, G, BUCKET]
     amin = jnp.argmin(sb, axis=2).astype(jnp.int32)        # chunk index m
@@ -238,54 +276,28 @@ def bucket_min_scan_reference(
 
 
 # ---------------------------------------------------------------------------
-# int8 variant: 2x MXU rate + pure-integer epilogue
+# int8 keys
 # ---------------------------------------------------------------------------
 #
-# The bf16 kernel's epilogue costs ~5 f32 VPU ops per score element (bias
-# add, qsq add, bitcast, mask-and, chunk-or) on top of the matmul; at
-# D=128 that makes the VPU — not the MXU — the kernel's speed limit. The
-# int8 path attacks both sides: the MXU runs int8 x int8 -> int32 at twice
-# the bf16 rate, and because the dot is already an int32 the packed
-# min-key needs only (bias - dot) << 7 | chunk — 3 integer ops, no
-# bitcast/abs tricks (int32 min IS total order). Quantization error only
-# perturbs the coarse ranking; survivors are re-scored in exact fp32
-# (same recovery as the bf16 path, reference parity per
-# bruteforce.h exact scan).
+# The int8 tensor-core rate is twice bf16's, and because the dot is already
+# an int32 the packed min-key needs only integer ops — no bitcast tricks
+# (int32 min IS total order). Quantization error only perturbs the coarse
+# ranking; survivors are re-scored in exact fp32 (same recovery as the bf16
+# path, reference parity per bruteforce.h exact scan).
 #
-# Integer score layout (per call, d = padded dim):
-#   DOTMAX     = d * 127 * 127              (|<qi, ci>| bound)
-#   BIAS_CLAMP = 2^22                       (valid bias clipped here)
-#   SENTINEL   = BIAS_CLAMP + 2*DOTMAX + 1  (invalid/filtered rows)
-#   score      = bias - dot ∈ [-DOTMAX - BIAS_CLAMP, SENTINEL + DOTMAX]
-#   invalid  ⇔ score > BIAS_CLAMP + DOTMAX  (disjoint from any valid score)
-# packed = (score >> pre_shift) << 7 | chunk must fit int32: pre_shift is
-# the smallest s with (SENTINEL + DOTMAX) >> s < 2^24 (0 for d <= 256).
-
-
-def i8_layout(d: int) -> Tuple[int, int, int, int]:
-    """(bias_clamp, sentinel, pre_shift, invalid_thresh) for padded dim
-    ``d``. The 4096 slack keeps valid and invalid scores disjoint even
-    after the pre-shift quantization (which can lower a score by up to
-    2^pre_shift - 1)."""
-    dotmax = d * 127 * 127
-    bias_clamp = 1 << 22
-    sentinel = bias_clamp + 2 * dotmax + 4096
-    pre_shift = 0
-    while (sentinel + dotmax) >> pre_shift >= (1 << 24):
-        pre_shift += 1
-    invalid_thresh = bias_clamp + dotmax + 2048
-    return bias_clamp, sentinel, pre_shift, invalid_thresh
+# The survivor top-k runs on the f32 bitcast of the keys (monotone only for
+# non-negative ints), so scores are offset to be provably >= 0:
+#   score' = (bias + DOTMAX) - dot,  DOTMAX = d * 127 * 127.
 
 
 def i8_packed_layout(d: int, span: int) -> Tuple[int, int, int, int, int]:
     """(bias_offset, bias_clamp, sentinel, pre_shift, invalid_thresh) for
-    the packed single-output int8 kernel.
+    the packed int8 kernel at padded dim ``d``.
 
-    The packed kernel bitcasts its int32 keys to f32 for the survivor
-    top-k (monotone only for non-negative ints), so scores are offset to
-    be provably >= 0: score' = (bias + DOTMAX) - dot. chunk_bits =
-    log2(span * 128) low bits carry the chunk id; pre_shift drops score
-    LSBs until (max score' << chunk_bits) fits in int31."""
+    chunk_bits = log2(span * 128) low bits carry the chunk id; pre_shift
+    drops score LSBs until (max score' << chunk_bits) fits in int31. The
+    slack keeps valid and invalid scores disjoint even after the pre-shift
+    quantization."""
     dotmax = d * 127 * 127
     bias_clamp = 1 << 22
     sentinel = bias_clamp + 3 * dotmax + 4096
@@ -297,96 +309,13 @@ def i8_packed_layout(d: int, span: int) -> Tuple[int, int, int, int, int]:
     return dotmax, bias_clamp, sentinel, pre_shift, invalid_thresh
 
 
-def _kernel_i8_packed_fused(q_ref, c_ref, bias_ref, out_ref, sv_ref,
-                            *, block_n: int, flush_every: int,
-                            chunk_bits: int):
-    """pre_shift == 0 fast path: the wrapper pre-folds the chunk id into
-    the bias row (bias_c = (bias << chunk_bits) | chunk), so the packed
-    key is exactly ``bias_c - (dots << chunk_bits)`` — 2 VPU ops per
-    score element instead of 4. Algebra: both shifted terms have zero low
-    chunk_bits and the offset bias keeps bias - dots >= 0, so the
-    subtraction never borrows out of the chunk field; the result is
-    bit-identical to ((bias - dots) << chunk_bits) | chunk. pre_shift==0
-    is also precisely the no-overflow condition ((sentinel + dotmax) <<
-    chunk_bits < 2^31, see i8_packed_layout). At D=128 the epilogue — not
-    the int8 MXU — is this kernel's speed limit, so halving its op count
-    is the single biggest lever on the coarse scan."""
-    j = pl.program_id(1)
-    jm = j % flush_every
-    dots = jax.lax.dot_general(
-        q_ref[...],
-        c_ref[...],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-    packed = bias_ref[...] - (dots << chunk_bits)
-    w = block_n
-    while w > BUCKET:
-        w //= 2
-        packed = jnp.minimum(packed[:, :w], packed[:, w:2 * w])
-
-    @pl.when(jm == 0)
-    def _init():
-        sv_ref[...] = packed
-
-    @pl.when(jm != 0)
-    def _acc():
-        sv_ref[...] = jnp.minimum(sv_ref[...], packed)
-
-    @pl.when(jm == flush_every - 1)
-    def _flush():
-        out_ref[...] = sv_ref[...]
-
-
-def _kernel_i8_packed(q_ref, c_ref, bias_ref, chunk_ref, out_ref, sv_ref,
-                      *, block_n: int, flush_every: int, pre_shift: int,
-                      chunk_bits: int):
-    """Packed single-output int8 step: min-fold (score', chunk) int32 keys
-    across ``flush_every`` consecutive N-steps (= span GROUPs) before
-    flushing — one survivor per span*128 corpus rows, one int32 each.
-    Halving+span-ing the survivor bytes is what makes the downstream
-    top-k cheap; the key itself carries everything (no idx array, no
-    take_along gather — the selected values ARE the packed keys)."""
-    j = pl.program_id(1)
-    jm = j % flush_every
-    dots = jax.lax.dot_general(
-        q_ref[...],
-        c_ref[...],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-    score = bias_ref[...] - dots          # >= 0 by the bias offset
-    if pre_shift:
-        score = score >> pre_shift
-    packed = (score << chunk_bits) | chunk_ref[0]
-    w = block_n
-    while w > BUCKET:
-        w //= 2
-        packed = jnp.minimum(packed[:, :w], packed[:, w:2 * w])
-
-    @pl.when(jm == 0)
-    def _init():
-        sv_ref[...] = packed
-
-    @pl.when(jm != 0)
-    def _acc():
-        sv_ref[...] = jnp.minimum(sv_ref[...], packed)
-
-    @pl.when(jm == flush_every - 1)
-    def _flush():
-        out_ref[...] = sv_ref[...]
-
-
-@functools.partial(
-    jax.jit, static_argnames=("span", "block_b", "block_n", "interpret")
-)
+@functools.partial(jax.jit, static_argnames=("span", "tile", "interpret"))
 def bucket_min_scan_i8_packed(
     queries: jnp.ndarray,   # [B, D] int8
     corpus: jnp.ndarray,    # [N, D] int8 (N % (span*GROUP) == 0)
     bias: jnp.ndarray,      # [1, N] int32 (already offset by +DOTMAX)
     span: int = 4,
-    block_b: int = 512,
-    block_n: int = BLOCK_N,
+    tile: Optional[Tile] = None,
     interpret: bool = False,
 ) -> jnp.ndarray:
     """Fused packed int8 coarse scan → packed keys [B, N/(128*span)] i32.
@@ -395,76 +324,12 @@ def bucket_min_scan_i8_packed(
       chunk = key & (span*128 - 1); score = (key >> chunk_bits) << pre_shift
       row   = (c // 128) * span * GROUP + chunk * BUCKET + (c % 128)
     """
-    b, d = queries.shape
-    n = corpus.shape[0]
-    if n % (span * GROUP) or d % 128 or b % block_b \
-            or block_n % BUCKET or GROUP % block_n:
-        raise ValueError(
-            f"bucket_min_scan_i8_packed alignment: B={b}%{block_b}, "
-            f"N={n}%{span * GROUP}, D={d}%128, block_n={block_n}"
-        )
-    _, _, _, pre_shift, _ = i8_packed_layout(d, span)
-    chunk_bits = (span * (GROUP // BUCKET) - 1).bit_length()
-    flush_every = span * GROUP // block_n
-    nsv = n // (BUCKET * span)
-    grid = (b // block_b, n // block_n)
-    if pre_shift == 0:
-        # fold the per-column chunk id into the bias row once (O(N) host
-        # of the launch, vs O(B*N) in the epilogue) — see
-        # _kernel_i8_packed_fused
-        col = jnp.arange(n, dtype=jnp.int32)
-        chunk_col = (col % (span * GROUP)) // BUCKET
-        bias_c = ((bias[0] << chunk_bits) | chunk_col)[None, :]
-        return pl.pallas_call(
-            functools.partial(
-                _kernel_i8_packed_fused, block_n=block_n,
-                flush_every=flush_every, chunk_bits=chunk_bits,
-            ),
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((block_b, d), lambda i, j: (i, 0)),
-                pl.BlockSpec((block_n, d), lambda i, j: (j, 0)),
-                pl.BlockSpec((1, block_n), lambda i, j: (0, j)),
-            ],
-            out_specs=pl.BlockSpec(
-                (block_b, OUT_W), lambda i, j, f=flush_every: (i, j // f)
-            ),
-            out_shape=jax.ShapeDtypeStruct((b, nsv), jnp.int32),
-            scratch_shapes=[
-                pltpu.VMEM((block_b, BUCKET), jnp.int32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-            ),
-            interpret=interpret,
-        )(queries, corpus, bias_c)
-    chunk = _chunk_rows(block_n, flush_every)
-    return pl.pallas_call(
-        functools.partial(
-            _kernel_i8_packed, block_n=block_n, flush_every=flush_every,
-            pre_shift=pre_shift, chunk_bits=chunk_bits,
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block_b, d), lambda i, j: (i, 0)),
-            pl.BlockSpec((block_n, d), lambda i, j: (j, 0)),
-            pl.BlockSpec((1, block_n), lambda i, j: (0, j)),
-            pl.BlockSpec(
-                (1, 1, block_n), lambda i, j, f=flush_every: (j % f, 0, 0)
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (block_b, OUT_W), lambda i, j, f=flush_every: (i, j // f)
-        ),
-        out_shape=jax.ShapeDtypeStruct((b, nsv), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((block_b, BUCKET), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
+    _, _, _, pre_shift, _ = i8_packed_layout(queries.shape[1], span)
+    return _scan(
+        queries, jnp.zeros((queries.shape[0],), jnp.float32), corpus, bias,
+        span=span, pre_shift=pre_shift, mode="i8", tile=tile,
         interpret=interpret,
-    )(queries, corpus, bias, chunk)
+    )
 
 
 def bucket_min_scan_i8_packed_reference(
@@ -473,7 +338,7 @@ def bucket_min_scan_i8_packed_reference(
     bias: jnp.ndarray,
     span: int = 4,
 ) -> jnp.ndarray:
-    """Pure-XLA oracle for the packed int8 kernel."""
+    """Plain-XLA oracle for the packed int8 kernel."""
     d = queries.shape[1]
     _, _, _, pre_shift, _ = i8_packed_layout(d, span)
     chunk_bits = (span * (GROUP // BUCKET) - 1).bit_length()
@@ -512,160 +377,6 @@ def make_bias_i8_packed(
     else:
         bias = jnp.zeros((n,), jnp.int32)
     bias = bias + dotmax
-    if invalid is not None:
-        bias = jnp.where(invalid, sentinel, bias)
-    if filter_mask is not None:
-        bias = jnp.where(filter_mask, bias, sentinel)
-    return bias[None, :]
-
-
-def _kernel_i8(q_ref, c_ref, bias_ref, chunk_ref, vals_ref, idx_ref, sv_ref,
-               *, block_n: int, revisit: int, pre_shift: int):
-    j = pl.program_id(1)
-    jm = j % revisit
-    dots = jax.lax.dot_general(
-        q_ref[...],
-        c_ref[...],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-    score = bias_ref[...] - dots
-    if pre_shift:
-        score = score >> pre_shift
-    packed = (score << 7) | chunk_ref[0]
-    w = block_n
-    while w > BUCKET:
-        w //= 2
-        packed = jnp.minimum(packed[:, :w], packed[:, w:2 * w])
-
-    @pl.when(jm == 0)
-    def _init():
-        sv_ref[...] = packed
-
-    @pl.when(jm != 0)
-    def _acc():
-        sv_ref[...] = jnp.minimum(sv_ref[...], packed)
-
-    @pl.when(jm == revisit - 1)
-    def _flush():
-        best = sv_ref[...]
-        # integer score back out; scale restored for the merge ordering
-        vals_ref[...] = (best >> 7 << pre_shift).astype(jnp.float32)
-        lane = jax.lax.broadcasted_iota(jnp.int32, best.shape, 1)
-        group_start = (j - (revisit - 1)) * block_n
-        idx_ref[...] = group_start + (best & 127) * BUCKET + lane
-
-
-@functools.partial(
-    jax.jit, static_argnames=("block_b", "block_n", "interpret")
-)
-def bucket_min_scan_i8(
-    queries: jnp.ndarray,   # [B, D] int8
-    corpus: jnp.ndarray,    # [N, D] int8 (N % GROUP == 0)
-    bias: jnp.ndarray,      # [1, N] int32 (valid ≤ BIAS_CLAMP; invalid = SENTINEL)
-    block_b: int = 512,
-    block_n: int = BLOCK_N,
-    interpret: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Fused int8 coarse scan → (vals [B, N/128] f32, idx [B, N/128] i32).
-
-    vals are *integer-domain* scores (bias - dot, de-pre-shifted): callers
-    compare them only against each other and the invalid threshold from
-    ``i8_layout``; exact distances come from the fp32 rescore.
-    """
-    b, d = queries.shape
-    n = corpus.shape[0]
-    if n % GROUP or d % 128 or b % block_b or block_n % BUCKET \
-            or GROUP % block_n:
-        raise ValueError(
-            f"bucket_min_scan_i8 alignment: B={b}%{block_b}, N={n}%{GROUP}, "
-            f"D={d}%128, block_n={block_n} must align"
-        )
-    _, _, pre_shift, _ = i8_layout(d)
-    revisit = GROUP // block_n
-    nb = n // BUCKET
-    grid = (b // block_b, n // block_n)
-    chunk = _chunk_rows(block_n, revisit)
-    return pl.pallas_call(
-        functools.partial(
-            _kernel_i8, block_n=block_n, revisit=revisit,
-            pre_shift=pre_shift,
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block_b, d), lambda i, j: (i, 0)),
-            pl.BlockSpec((block_n, d), lambda i, j: (j, 0)),
-            pl.BlockSpec((1, block_n), lambda i, j: (0, j)),
-            pl.BlockSpec(
-                (1, 1, block_n), lambda i, j, r=revisit: (j % r, 0, 0)
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (block_b, OUT_W), lambda i, j, r=revisit: (i, j // r)
-            ),
-            pl.BlockSpec(
-                (block_b, OUT_W), lambda i, j, r=revisit: (i, j // r)
-            ),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, nb), jnp.float32),
-            jax.ShapeDtypeStruct((b, nb), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((block_b, BUCKET), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(queries, corpus, bias, chunk)
-
-
-def bucket_min_scan_i8_reference(
-    queries: jnp.ndarray,
-    corpus: jnp.ndarray,
-    bias: jnp.ndarray,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Pure-XLA oracle for the int8 kernel."""
-    d = queries.shape[1]
-    _, _, pre_shift, _ = i8_layout(d)
-    dots = jax.lax.dot_general(
-        queries, corpus,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-    s = ((bias - dots) >> pre_shift) << pre_shift  # model the pre-shift loss
-    b, n = s.shape
-    sb = s.reshape(b, n // GROUP, GROUP // BUCKET, BUCKET)
-    vals = sb.min(axis=2).astype(jnp.float32)
-    amin = jnp.argmin(sb, axis=2).astype(jnp.int32)
-    g = jnp.arange(n // GROUP, dtype=jnp.int32)[None, :, None]
-    lane = jnp.arange(BUCKET, dtype=jnp.int32)[None, None, :]
-    idx = g * GROUP + amin * BUCKET + lane
-    return vals.reshape(b, n // BUCKET), idx.reshape(b, n // BUCKET)
-
-
-def make_bias_i8(
-    n: int,
-    d_pad: int,
-    metric: str,
-    corpus_sq: Optional[jnp.ndarray],
-    inv_two_scales: jnp.ndarray,  # scalar f32: 1 / (2 * sq * sc)
-    invalid: Optional[jnp.ndarray],
-    filter_mask: Optional[jnp.ndarray],
-) -> jnp.ndarray:
-    """[1, n] int32 bias for the int8 kernel: round(||c||^2 / (2 sq sc))
-    for l2 (clamped to BIAS_CLAMP), 0 for ip/cosine; SENTINEL for rows
-    that must never be returned."""
-    bias_clamp, sentinel, _, _ = i8_layout(d_pad)
-    if metric == "l2":
-        if corpus_sq is None:
-            raise ValueError("l2 int8 bias needs corpus_sq")
-        f = corpus_sq.astype(jnp.float32) * inv_two_scales
-        bias = jnp.clip(jnp.round(f), 0, bias_clamp).astype(jnp.int32)
-    else:
-        bias = jnp.zeros((n,), jnp.int32)
     if invalid is not None:
         bias = jnp.where(invalid, sentinel, bias)
     if filter_mask is not None:

@@ -4,7 +4,7 @@ Reference mapping: the coordinator's cross-shard scatter/gather
 (src/query/fanout.cc PerformSearchFanoutAsync :312, per-shard
 SearchIndexPartition RPC, merge tracker :69-222) becomes S per-device HNSW
 subgraphs searched in one shard_map program with an all_gather top-k merge
-over ICI (parallel/mesh.py). Keys are routed to shards by hash (the
+across devices (parallel/mesh.py). Keys are routed to shards by hash (the
 reference routes by keyspace hash slot, vmsdk/src/cluster_map.h); the
 per-shard version scalars replace the index-fingerprint consistency check
 (coordinator/server.h:60-65) — a (min≠max) version spread is surfaced as

@@ -1,12 +1,12 @@
-"""Sharded search programs: shard_map over a device mesh + ICI top-k merge.
+"""Sharded search programs: shard_map over a device mesh + top-k merge.
 
 Reference mapping (SURVEY §2.4/§2.5 P5): a cluster shard = one mesh-axis
 partition of the corpus; ``SearchIndexPartition`` (the per-shard gRPC RPC,
 src/coordinator/coordinator.proto:21-31) = the per-device local top-k over
 its shard; the coordinator's k-bounded merge heap
 (src/query/fanout.cc:69-222 SearchPartitionResultsTracker) = an
-``all_gather`` of per-shard top-k rows over ICI followed by a k-selection —
-O(S·k) bytes on the interconnect per query batch instead of S RPCs.
+``all_gather`` of per-shard top-k rows across devices followed by a
+k-selection — O(S·k) bytes on the interconnect per query batch instead of S RPCs.
 
 Consistency: the reference rejects RPCs whose index fingerprint/version
 disagrees (FAILED_PRECONDITION, server.h:60-65); here each shard carries a
@@ -85,8 +85,8 @@ def sharded_flat_topk(
     """Exact k-NN over a mesh-sharded corpus.
 
     Returns (dists [B,k], global ids [B,k], version_minmax [2]). Each device
-    scans only its local shard (1/S of HBM traffic), local ids are offset to
-    global ids, and one all_gather of [B,k] rows merges over ICI.
+    scans only its local shard (1/S of memory traffic), local ids are offset to
+    global ids, and one all_gather of [B,k] rows merges across devices.
 
     two_stage=True runs the bf16-coarse + fp32-rescore retrieval per shard
     (each device casts its own shard once; the rescore happens locally, so
@@ -103,7 +103,7 @@ def sharded_flat_topk(
             d, i = topk_ops.flat_topk_two_stage(
                 queries_l,
                 corpus_l,
-                corpus_l.astype(jnp.bfloat16),  # local cast, one HBM pass
+                corpus_l.astype(jnp.bfloat16),  # local cast: one memory pass
                 k=k,
                 metric=metric,
                 invalid=inv,
@@ -123,7 +123,7 @@ def sharded_flat_topk(
                 mode=mode,
             )
         gids = jnp.where(i >= 0, i + shard_id * rows, -1)
-        all_d = jax.lax.all_gather(d, SHARD_AXIS)      # [S, B, k] over ICI
+        all_d = jax.lax.all_gather(d, SHARD_AXIS)  # [S, B, k]
         all_i = jax.lax.all_gather(gids, SHARD_AXIS)
         md, mi = _merge_gathered(all_d, all_i, k)
         vmin = jax.lax.pmin(version_l[0], SHARD_AXIS)
@@ -169,7 +169,7 @@ def sharded_hnsw_search(
     precision: str = "highest",
 ):
     """ANN over per-shard HNSW graphs: each device beam-searches its own
-    subgraph, then per-shard top-k rows all_gather + merge over ICI.
+    subgraph, then per-shard top-k rows all_gather + merge across devices.
 
     ``graphs`` holds S independent subgraphs with identical capacities,
     stacked on a leading shard axis; result ids are returned as
@@ -316,7 +316,7 @@ def consistent_sharded_topk(
 
     ``snapshot_fn() -> (corpus, shard_versions, invalid_or_None)`` supplies
     a (possibly refreshed) snapshot per attempt. The device program returns
-    the (min, max) shard-version pair over ICI; min != max is the mesh
+    the (min, max) shard-version pair across devices; min != max is the mesh
     analog of the reference's per-RPC fingerprint check
     (FAILED_PRECONDITION, server.h:60-65) and triggers a retry against a
     fresh snapshot — the same loop the gRPC coordinator runs
@@ -380,13 +380,13 @@ def dim_sharded_flat_topk(
 ):
     """TP-style exact k-NN: the *dimension* axis is split across the mesh
     (SURVEY §5.7 — the legitimate tensor-parallel extension for very
-    high-d embeddings whose corpus rows exceed one device's HBM).
+    high-d embeddings whose corpus rows exceed one device's memory).
 
     Each device computes partial dot products / partial squared norms
-    over its dimension slice; one `psum` over ICI reduces them to full
+    over its dimension slice; one `psum` across devices reduces them to full
     distances, and the top-k runs replicated. Communication is O(B·N)
     scores — independent of D — so the layout pays off when D is large
-    enough that row-sharding would thrash HBM.
+    enough that row-sharding would thrash device memory.
     """
     n_shards = mesh.shape[SHARD_AXIS]
     d_total = corpus.shape[1]
@@ -426,8 +426,8 @@ def sharded_ivf_topk(
 ):
     """IVF coarse-pruned k-NN over a mesh-sharded block index — the
     "billions of vectors" scaling path (reference README.md:5): each
-    device holds 1/S of the blocks (its HBM bound), probes its local
-    top-``probe`` cells, and one [B, k] all_gather merges over ICI.
+    device holds 1/S of the blocks (its memory bound), probes its local
+    top-``probe`` cells, and one [B, k] all_gather merges across devices.
 
     Per-shard probe stays the FULL probe (blocks are cluster-major, so a
     query's best cells concentrate in few shards; probing ``probe`` cells
@@ -451,7 +451,7 @@ def sharded_ivf_topk(
             idx_l, queries_l, k=k, probe=probe, metric=metric,
             probe_chunk=probe_chunk,
         )
-        all_d = jax.lax.all_gather(d, SHARD_AXIS)      # [S, B, k] over ICI
+        all_d = jax.lax.all_gather(d, SHARD_AXIS)  # [S, B, k]
         all_i = jax.lax.all_gather(ids, SHARD_AXIS)
         return _merge_gathered(all_d, all_i, k)
 
@@ -489,12 +489,11 @@ def sharded_ivf_topk_rescored(
     probe_chunk: int = 8,
 ):
     """sharded_ivf_topk + per-shard EXACT fp32 rescore — the ≥0.99-recall
-    tier at mesh scale (VERDICT r4 next#3): a corpus too large for one
-    chip's fp32 mirror shards BOTH the int8 blocks and the fp32 rows over
-    the mesh; each shard rescores its own coarse candidates from its own
+    tier at mesh scale: a corpus too large for one card's fp32 mirror
+    shards BOTH the int8 blocks and the fp32 rows over the mesh; each shard rescores its own coarse candidates from its own
     fp32 slice (rows live in exactly one block, so candidates never need
-    a remote row), and one [B, k] all_gather merges exact scores over
-    ICI. Residual-int8 ordering noise never reaches the merged result —
+    a remote row), and one [B, k] all_gather merges exact scores.
+    Residual-int8 ordering noise never reaches the merged result —
     same contract as the single-chip ivf_search_rescored.
 
     The coarse pass runs on a view of the index whose block_ids are slot

@@ -7,7 +7,7 @@ for up/downgrade gating, vector graphs + key→id+magnitude maps saved,
 non-vector indexes rebuilt on load from the key list, and a skip-load
 config that drops the vector payload and rebuilds via backfill.
 
-TPU design: device state is already struct-of-arrays on the host
+Device design: device state is already struct-of-arrays on the host
 (HostVectorStore + native graph), so a checkpoint is a framed stream of
 (json section header, raw ndarray chunks) — the orbax-style chunked host
 streaming SURVEY.md §5.4 calls for, without the orbax dependency.

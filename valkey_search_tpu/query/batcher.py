@@ -2,7 +2,7 @@
 
 Reference P1 (SURVEY.md §2.5): every FT.SEARCH runs on a reader-pool
 thread (valkey_search.cc:1161-1164, vmsdk/src/thread_pool.h) and scales
-with cores. The TPU-native equivalent is *batching*: one chip runs one
+with cores. The device-native equivalent is *batching*: one chip runs one
 program at a time, so concurrent queries against the same index are
 stacked on the host and executed as a single `search_batch` device call —
 per-launch overhead and the corpus stream amortize across the whole batch

@@ -5,10 +5,10 @@ always pre-filter (the exact scan already touches every candidate); HNSW
 pre-filters iff the estimated qualified count ≤ ratio × tracked keys,
 otherwise the predicate is evaluated inline during graph traversal.
 
-On TPU the same structure holds but the costs shift: the inline filter is a
-fused bitmask lookup (near-free inside the beam-search kernel), while the
+On a device the same structure holds but the costs shift: the inline
+filter is a fused bitmask lookup (near-free inside the beam-search kernel), while the
 pre-filter path is an exact blocked matmul over qualified rows — whose cost
-is O(cap·d/B) per batch regardless of selectivity, since the MXU scans the
+is O(cap·d/B) per batch regardless of selectivity, since the matmul scans the
 whole padded corpus. The threshold ratio (search.prefiltering-threshold-ratio)
 is therefore retuned empirically rather than inherited.
 """

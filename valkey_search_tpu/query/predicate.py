@@ -3,7 +3,7 @@
 Reference: src/query/predicate.h:41-377 — Tag / Numeric / Text(Term, Prefix,
 Suffix, Fuzzy) / And / Or / Negate nodes evaluated by double-dispatch.
 
-TPU design: a predicate evaluates three ways —
+Device design: a predicate evaluates three ways —
 1. ``estimate(ctx)``: host-side qualified-count upper bound for the planner
    (reference EvaluateFilterAsPrimary, search.cc:300, sizes leaves through
    index fetchers);

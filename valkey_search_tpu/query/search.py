@@ -5,7 +5,7 @@ the reader lock, choosing DoSearchVector (:692 — inline filter functor vs
 exact-over-prefiltered-set) or DoSearchNonVector (:607 — fetcher scan with
 dedup), then trims via the LIMIT buffer multiplier (:744).
 
-TPU mapping: the reader lock becomes the published device snapshot; the
+Device mapping: the reader lock becomes the published device snapshot; the
 inline filter functor becomes a doc-space bitmask fused into the beam
 kernel; the prefiltered exact path becomes a masked blocked-matmul scan;
 the non-vector fetcher scan becomes one device mask reduced to ids on host.

@@ -167,8 +167,8 @@ _bool("search.debug-mode", False)
 _num("search.reader-threads", 1, 1, 1024)          # host query dispatch pool
 _num("search.writer-threads", 1, 1, 1024)          # host ingest pool
 _num("search.hnsw-block-size", 10240, 128, 10_000_000)  # capacity growth quantum
-# 256k-row scan blocks measured fastest for the two-stage retrieval
-# (155.6k qps @ recall 0.998 on 1M x 128 vs 138k at 128k blocks)
+# scan block rows for the blocked scans. 256k was chosen on the previous
+# hardware; not yet measured on the H100.
 _num("search.flat-block-size", 262144, 1024, 10_000_000)
 _num("search.prefiltering-threshold-ratio", 0.45, 0.0, 1.0)  # planner.cc:40-43
 _num("search.search-result-buffer-multiplier", 5, 1, 100)    # search.cc:744
@@ -187,28 +187,32 @@ _num("search.query-max-batch", 1024, 1, 4096)
 # spawn only while the backlog exceeds a full launch per live worker —
 # they overlap host<->device round trips, not device compute.
 _num("search.query-dispatch-threads", 4, 1, 16)
-# HIGH (bf16x3 MXU passes) keeps recall@10 >= 0.99 on tightly-clustered
-# corpora where DEFAULT (single bf16 pass) drops it to ~0.89; HIGHEST
-# (fp32) is bit-faithful to a CPU float implementation but slower.
+# float32 scan products: HIGHEST is full fp32 (bit-faithful to a CPU float
+# implementation, slower); HIGH and DEFAULT run TF32 on a GPU's tensor
+# cores. "high" was chosen on the previous hardware; not yet measured on
+# the H100 (chip_smoke.py reports the TF32 scan's recall). topk-mode
+# exact always uses HIGHEST.
 _enum("search.distance-precision", "high", ["highest", "high", "default"])
-# per-block top-k primitive for the flat scan: lax.approx_min_k is the
-# TPU-optimized partial reduce (2-3x faster; end-to-end recall@10 >= 0.99
-# measured — cross-block merges stay exact). "exact" = lax.top_k.
+# "approx" serves the two-stage paths (a bf16 or int8 coarse scan with
+# over-retrieval, then an exact fp32 rescore; blocked float32 scans select
+# with lax.approx_min_k, which is exact off the TPU). "exact" = a float32
+# scan at full precision with lax.top_k.
 _enum("search.topk-mode", "approx", ["approx", "exact"])
-# coarse-scan implementation: "pallas" fuses the distance matmul with the
-# per-bucket min/argmin reduction (ops/pallas_scan.py) so the [B, N] score
-# matrix never touches HBM; "xla" is the approx_min_k two-stage; "auto"
-# picks pallas on TPU for large corpora (per-query filter masks and small
-# corpora always take the xla path).
+# coarse-scan implementation: "pallas" is the fused kernel
+# (ops/pallas_scan.py, Pallas on the Triton route) that folds the
+# per-bucket min into the distance matmul, so the [B, N] score matrix
+# never reaches device memory; it compiles only for a GPU and raises
+# ScanKernelUnavailable elsewhere. "xla" = the unfused scans. "auto" =
+# pallas where it compiles, for corpora >= 131072 rows without per-query
+# filter masks.
 _enum("search.scan-kernel", "auto", ["auto", "pallas", "xla"])
 # fused-scan tuning (ops/topk.py flat_topk_fused): survivor granularity
 # (rows per packed int8 survivor = span*128) and exact-rescore
-# over-retrieval (coarse_factor*k candidates). 0 = auto (measured
-# defaults: span 8 / cf 4 at >=1M rows — 392-490k qps at recall@10
-# 0.9906-0.9984 across clustered/uniform/low-rank-768 1M shapes,
-# scripts/recall_shapes.py r5). Operators wanting more recall margin on
-# adversarial corpora: span=4 cf=4 holds >=0.9984 on every measured
-# shape at ~13% lower qps.
+# over-retrieval (coarse_factor*k candidates). 0 = auto (span 8 / cf 4 at
+# >=1M rows held recall@10 >= 0.99 across clustered/uniform/low-rank-768
+# 1M shapes, scripts/recall_shapes.py; the speed trade was measured on
+# the previous hardware, not yet on the H100). Operators wanting more
+# recall margin on adversarial corpora: span=4 cf=4.
 _num("search.scan-span", 0, 0, 16)
 _num("search.scan-coarse-factor", 0, 0, 64)
 _bool("search.skip-corrupted-internal-update-entries", False)
@@ -234,28 +238,28 @@ _num("search.hnsw-aos-budget-bytes", 1 << 30, 0, 1 << 40)
 # place; here the rebuild is cheap and produces a tombstone-free graph).
 # 0 disables auto-vacuum (explicit FT._DEBUG / vacuum() still works).
 _num("search.hnsw-vacuum-deleted-ratio", 0.5, 0.0, 1.0)
-# scan-seeded traversal: a strided-subsample MXU pass initializes the
+# scan-seeded traversal: a strided-subsample matmul pass initializes the
 # beam with ef good candidates before the graph walk refines them (the
 # subsample plays the upper layers' long-range-routing role). 0 = pure
 # entry-point descent (hnswlib-faithful); N = subsample stride.
 _num("search.hnsw-traversal-seed-stride", 0, 0, 1_000_000)
 # project the AoS traversal mirror to this many dims (0 = full d):
-# smaller rows -> faster HBM gathers during the walk; the exact fp32
+# smaller rows -> faster device gathers during the walk; the exact fp32
 # rescore keeps final distances full-precision (DiskANN-style
 # quantized-guided traversal)
 _num("search.hnsw-aos-project-dim", 0, 0, 4096)
 _num("search.hnsw-build-batch", 4096, lo=256, hi=65536)
 # corpus storage for the flat scan: bfloat16 keeps a half-width mirror for
-# the coarse pass (exact fp32 rescore of 4k candidates restores recall:
-# measured 1.6x QPS at recall@10 0.998 on 1M x 128); float32 = single-stage
+# the coarse pass and int8 a quarter-width one (an exact fp32 rescore of
+# the candidates restores recall); float32 = single-stage. bfloat16 was
+# chosen on the previous hardware; not yet measured on the H100.
 _enum("search.corpus-dtype", "bfloat16", ["bfloat16", "float32", "int8"])
-# HNSW indexes answer queries via the MXU exact scan while the corpus is
-# at or below this size. Measured: the scan wins at every on-chip size
-# (recall 1.0; 141k qps at 1M, 44k at 10M vs ~1.4k for batched graph
-# traversal), and HBM caps a single chip near ~20M rows at 128d — so the
-# default keeps the scan for everything that fits. The graph remains for
-# API/persistence parity, the CPU oracle, and >HBM sharded regimes.
-# 0 = always traverse the graph.
+# HNSW indexes answer queries via the exact scan while the corpus is at or
+# below this size; the default keeps the scan for everything that fits on
+# the device. The graph remains for API/persistence parity, the CPU
+# oracle, and larger-than-memory sharded regimes. Chosen on the previous
+# hardware, where the scan beat batched graph traversal at every size;
+# not yet measured on the H100. 0 = always traverse the graph.
 _num("search.hnsw-scan-threshold", 1 << 30, 0, 1 << 40)
 # writer-pool priority fairness (reference valkey_search_options.cc:237
 # kHighPriorityWeight, default 100): share of scheduling slots "high"
@@ -271,25 +275,21 @@ _bool("search.bgsave-fork", True)
 # searches on corpora at or above this row count route through the
 # residual-quantized block index instead of the O(N) exact scan — the
 # sub-linear regime the reference gets from hnswlib graph walks, built
-# from MXU matmuls + contiguous block gathers instead. 0 disables.
-# Threshold MEASURED on-chip (scripts/crossover.py r5, B=16384, 128d
-# clustered bytes, recall@10 >= 0.99 both paths, BASELINE.md table):
-# the fused scan is O(N) — 452k/273k/136k/96k/61k/62k qps at
-# 1/2/4/6/8/10M — while grouped-dispatch rescored IVF holds
-# 211-244k qps at probe=8 and 147-181k at probe=12-16, nearly
-# N-independent. The recall>=0.99 frontiers cross between the measured
-# 2M (scan 273k > ivf 244k) and 4M (ivf 233k > scan 136k) points.
+# from matmuls + contiguous block gathers instead. 0 disables. The fused
+# scan is O(N) while rescored IVF is nearly N-independent; 3M is where
+# their recall>=0.99 frontiers crossed on the previous hardware
+# (scripts/crossover.py); not yet measured on the H100.
 _num("search.ivf-threshold", 3_000_000, 0, 1 << 40)
 # rows per IVF block: the gather/scoring tile. 1024 x 128d int8 = 128KB
-# per tile — the contiguous-read shape HBM likes.
+# per tile — a contiguous read.
 _num("search.ivf-block-rows", 1024, 128, 65536)
 # blocks probed per query — the recall/throughput dial (IVF analog of
 # ef_runtime, EF_RUNTIME maps here). 0 = auto from the layout's block
 # count (ops/ivf.py default_probe: 8 through nb<=7168, 16 through
-# nb<=12288, then ~nb/384 clamped [32, 512] — measured r5: probe=8
-# collapses to 0.88 at 10M while 16 holds >=0.995; the 100M layout
-# needs ~256). Explicit values pin the dial; the no-rescore >HBM
-# tier's recall is the residual quantizer's ceiling regardless.
+# nb<=12288, then ~nb/384 clamped [32, 512]: probe=8 recall collapses to
+# 0.88 at 10M while 16 holds >=0.995; the 100M layout needs ~256).
+# Explicit values pin the dial; the no-rescore larger-than-memory tier's
+# recall is the residual quantizer's ceiling regardless.
 _num("search.ivf-probe", 0, 0, 65536)
 # coarse k-means cell count; 0 = auto (~N / (8 * block-rows), refined by
 # a second in-cluster k-means level for oversized cells)

@@ -6,7 +6,7 @@ events, and routes each document mutation to the per-attribute indexes
 (ProcessAttributeMutation, index_schema.cc:747). Invalid attribute data
 removes the key from all indexes (Redisearch compat, index_schema.cc:729).
 
-TPU design: all attribute indexes share one KeyInterner so predicates and
+Device design: all attribute indexes share one KeyInterner so predicates and
 vector rows align on a single doc-id space; `docs_valid` and per-attribute
 masks are device bool arrays over that space. The synchronous
 `upsert`/`delete` below is the write path the mutation queue

@@ -8,7 +8,7 @@ pool (valkey_search.cc:1165-1168), ProcessSingleMutationAsync (:999)
 applies under the write time-slice, and completion re-dispatches parked
 queries.
 
-TPU design: the same per-key combine queue feeds a small host writer pool;
+Device design: the same per-key combine queue feeds a small host writer pool;
 "apply" routes to the host-side index structures (native HNSW builder,
 postings, columns), and device snapshots publish lazily on the next query
 (epoch double-buffering instead of the time-sliced MRMW mutex). Because a

@@ -155,7 +155,7 @@ def run_ft_debug(engine, args: List[str]) -> object:
 
     if sub == "PROFILE":
         # jax.profiler trace capture (SURVEY §5.1: the reference is
-        # metrics-first; on TPU the added capability is a real XLA trace)
+        # metrics-first; on a device the added capability is an XLA trace)
         _require_debug_mode()
         if not rest:
             raise FTDebugError("PROFILE START <dir> | STOP")

@@ -2320,7 +2320,7 @@ def lua_to_resp(v, status_factory=None, error_factory=None):
         return 1
     if isinstance(v, (int, float)):
         # redis applies a C (long long) cast; non-finite / out-of-range
-        # doubles must not leak OverflowError (ADVICE r4: `return 1/0`)
+        # doubles must not leak OverflowError (`return 1/0`)
         if isinstance(v, float):
             if math.isnan(v):
                 return 0

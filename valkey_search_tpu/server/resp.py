@@ -7,12 +7,12 @@ stack, so the equivalent is a standalone RESP2/RESP3 server in front of
 ``Engine.execute``: redis-cli / redis-py / valkey-py connect unchanged
 and issue HSET / FT.CREATE / FT.SEARCH exactly as against the reference.
 
-Design notes (TPU-first):
+Design notes (accelerator-first):
 - One OS thread per connection (like the reference's main thread accepting
   commands), but FT.SEARCH is dispatched through ``Engine.ft_search_async``
   — the reader pool + query batcher (query/batcher.py) coalesce concurrent
   KNN queries from *different connections* into one device launch, which is
-  where the MXU batch-throughput comes from (reference P1 reader pool,
+  where the batch throughput comes from (reference P1 reader pool,
   valkey_search.cc:1161-1164).
 - Fully binary-safe: argv elements stay ``bytes`` end-to-end (vector blobs
   in HSET values and PARAMS must never pass through a text decode).
@@ -716,7 +716,7 @@ class _Handler(socketserver.StreamRequestHandler):
             return [1 if _s(h).lower() in scripts else 0 for h in rest[1:]]
         if sub == "FLUSH":
             scripts.clear()
-            self._script_asts(srv).clear()  # compiled ASTs too (ADVICE r4)
+            self._script_asts(srv).clear()  # compiled ASTs too
             return SimpleString("OK")
         raise RespError(f"Unknown SCRIPT subcommand {sub!r}")
 

@@ -5,8 +5,8 @@ punctuation split), prefix/suffix radix trees over the word dictionary,
 word -> Postings (ordered keys -> ordered positions with per-position
 field bitmask), stem tree, and streaming term/proximity/fuzzy iterators.
 
-TPU design: tokenization and dictionary structures live on the host
-(they are pointer-chasing workloads with no MXU affinity); the device
+Device design: tokenization and dictionary structures live on the host
+(they are pointer-chasing workloads with no tensor-core affinity); the device
 integration point is the predicate bitmask each text matcher resolves
 to, which fuses into the Pallas distance kernels exactly like tag and
 numeric predicates do.

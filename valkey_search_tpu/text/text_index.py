@@ -9,7 +9,7 @@ no-stem / suffix-trie flags. Query-side streaming iterators
 (term/proximity/fuzzy, src/indexes/text/{term,proximity,fuzzy}*) resolve
 matchers to key sets with positional SLOP/INORDER checks.
 
-TPU integration: every matcher ultimately resolves to a doc-id set /
+Device integration: every matcher ultimately resolves to a doc-id set /
 device bitmask which fuses into the Pallas distance kernels like tag and
 numeric predicates; the dictionary structures stay host-side (see
 package docstring)."""

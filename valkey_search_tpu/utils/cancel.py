@@ -6,7 +6,7 @@ loops (search.cc:449,672) and inside hnswlib via a cancellation functor
 (hnswlib.h:152-158); expired queries raise and count
 `search_query_timeouts`.
 
-On TPU a launched kernel is not interruptible — the token guards the
+On the device a launched kernel is not interruptible — the token guards the
 host-side loops around it (per-shard fanout, non-vector scans, content
 resolution, retry loops), which is where long queries actually spend
 host time.

@@ -1,9 +1,9 @@
 """Key interning: document keys ↔ dense int32 doc ids.
 
-TPU-native rethink of the reference's StringInternStore
+device-native rethink of the reference's StringInternStore
 (src/utils/string_interning.h:40-100) + per-vector-index key↔internal-id
-maps (src/indexes/vector_base.h:263-276). On TPU every per-attribute index
-must address documents by position in device arrays, so the id space is
+maps (src/indexes/vector_base.h:263-276). On the device every
+per-attribute index must address documents by position in device arrays, so the id space is
 *shared per index schema*: one dense doc-id space that vector rows, tag
 postings, numeric columns and predicate bitmasks all align to. Freed ids
 are recycled through a free list so capacity stays dense under churn
